@@ -1,7 +1,7 @@
 """End-to-end demo: every major subsystem in one script.
 
 Run: python examples/demo.py [outdir]
-Works on CPU or TPU; on CPU set JAX_PLATFORMS=cpu.
+Works on CPU or GPU; JAX_PLATFORMS=cpu selects the CPU.
 """
 
 import sys

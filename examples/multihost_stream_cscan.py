@@ -1,7 +1,7 @@
 """Multi-host streaming C-scan: two processes stream frames into their mesh
 shards; all_gather assembles the full volume on every host.
 
-The round-3 verdict's closing demo (item 8): the streaming ingest pipeline
+The multi-host closing demo: the streaming ingest pipeline
 (fdoct_tpu.streaming.run_streaming) and the jax.distributed machinery
 (tests/test_multihost.py) tied together — each "host" produces ITS slice of
 every frame batch, `jax.make_array_from_process_local_data` assembles the
@@ -40,7 +40,7 @@ def main(argv=None) -> int:
     ap.add_argument("--grid", default="",
                     help="process grid DxA (default: nprocs x 1); a 2x2 "
                          "grid shards frames over 'data' AND rows over "
-                         "'ascan' across processes (round-5 stretch)")
+                         "'ascan' across processes (stretch)")
     ap.add_argument("--batches", type=int, default=3,
                     help="streamed volume batches (global batch = 4 frames)")
     args = ap.parse_args(argv)

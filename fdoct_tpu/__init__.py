@@ -1,15 +1,15 @@
-"""fdoct_tpu — a TPU-native Fourier-domain OCT reconstruction framework.
+"""fdoct_tpu — an accelerator-native Fourier-domain OCT reconstruction framework.
 
 A from-scratch re-design of the capabilities of hn-88/FDOCT (a suite of
 C++/OpenCV programs for real-time spectral-domain OCT) as a single
-JAX/XLA/Pallas framework:
+JAX/XLA framework:
 
 - ``fdoct_tpu.ops``          — the algorithmic kernel library (windows, spectral
   resampling, row-wise FFT ops, filters, dB scaling) that the reference
   copy-pastes into every executable (reference: BscanFFT.cpp:88-347).
 - ``fdoct_tpu.calibration``  — the λ→k calibration precompute
   (reference: BscanFFT.cpp:615-698) plus the fused linear reconstruction
-  operator that is this framework's TPU-first speed path.
+  operator that is this framework's speed path (one matmul pair).
 - ``fdoct_tpu.pipeline``     — jit-compiled frame→B-scan reconstruction.
 - ``fdoct_tpu.session``      — the interactive keystroke state machine
   (averaging, background/π/J0/dark/ref/sample captures, thresholds)

@@ -6,14 +6,14 @@ point the nearest-lower-k index (first-match linear search) and a fractional
 offset.  Here the same quantities are computed vectorized on host in float64,
 once, into an immutable :class:`Calibration` pytree.
 
-TPU-first core: everything between the apodization ratio
+The speed core: everything between the apodization ratio
 ``yr = (y - data_yp)/data_yb`` and the A-scan magnitudes — per-row DC
 removal, windowing, spectral zero-pad, k-linear resampling, dispersion
 phase, and the (display-truncated) unnormalized inverse DFT — is *linear*
 in ``yr``.  :func:`Calibration.create` therefore composes it into one
 complex matrix ``M`` (n_raw × numdisplaypoints) by pushing the identity
 matrix through the exact compat-mode pipeline, so the per-frame hot path is
-a single MXU matmul ``|yr @ M|`` instead of the reference's scalar loops
+a single matmul pair ``|yr @ M|`` instead of the reference's scalar loops
 (BscanFFT.cpp:1135-1190).  The gather-based path (pipeline.py) retains
 step-by-step semantics for bit-parity testing.
 """
@@ -126,9 +126,9 @@ class Calibration:
     op_re: Any           # (n_raw, ndisp) fused operator, real part
     op_im: Any           # (n_raw, ndisp) fused operator, imag part
     # int8-quantized operator (per-column symmetric scales) for the
-    # matmul_precision="int8" display path — v5e's int8 MXU peak is ~2x
-    # bf16, and the inputs are camera counts anyway.  None when absent
-    # (e.g. hand-built Calibrations); pipeline falls back to bf16 then.
+    # matmul_precision="int8" display path (the inputs are camera counts
+    # anyway).  None when absent (e.g. hand-built Calibrations); pipeline
+    # falls back to bf16 then.
     op_re_q: Any = None      # (n_raw, ndisp) int8
     op_im_q: Any = None      # (n_raw, ndisp) int8
     op_scale_re: Any = None  # (ndisp,) f32 per-column dequant scale

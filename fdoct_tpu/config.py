@@ -94,10 +94,11 @@ class PipelineConfig:
     # --- framework extensions (no reference equivalent) ---
     dtype: str = "float32"          # compute dtype on device
     compat: bool = True             # bit-compatible reference semantics
-    matmul_precision: str = "default"  # "default" (TPU bf16 passes, ~1e-3
-    # rel, fastest) | "highest" (f32-exact, ~2x slower on TPU) | "bf16"
-    # (force the TPU-default branch on any backend) | "int8" (quantized
-    # display mode on the int8 MXU path; see pipeline._op_matmul_pair_int8)
+    matmul_precision: str = "default"  # "default" (f32 operands at
+    # Precision.DEFAULT: exact on CPU, may run as TF32 on a GPU) |
+    # "highest" (f32-exact on every backend) | "bf16" (explicit bf16
+    # operands, f32 accumulation) | "int8" (quantized display mode; see
+    # pipeline._op_matmul_pair_int8)
     # | "int8_direct" (fastest display mode: background/pi folded into the
     # quantized operator, zero elementwise work on the input — honored by
     # Session and the bench paths that carry an int8direct.Int8DirectPlan;

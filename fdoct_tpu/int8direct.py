@@ -1,11 +1,9 @@
-"""int8-direct MXU display path: zero elementwise work on the big input.
+"""int8-direct display path: zero elementwise work on the big input.
 
 The f32 hot path computes ``|((y - pi)/bg) @ M|`` (pipeline.ascan_mags_fused;
-reference hot loop BscanFFT.cpp:1123-1190).  On v5e the int8 MXU peak is ~2x
-bf16, but naive int8 use (pipeline._op_matmul_pair_int8) must dynamically
-quantize the *input* per row — elementwise reductions over the big (H, W)
-frame that cost more than the matmul saves (measured 34.8 vs 37.8 M
-A-scans/s, BENCH.md round 3).
+reference hot loop BscanFFT.cpp:1123-1190).  The naive int8 use
+(pipeline._op_matmul_pair_int8) must dynamically quantize the *input* per
+row — elementwise reductions over the big (H, W) frame.
 
 This module removes ALL elementwise work on the input by folding the
 calibration frames into the operator instead:
@@ -24,9 +22,7 @@ calibration frames into the operator instead:
   contributes the precomputed constant row ``128 * colsum(Mv)``.
 
 Per group the device then runs exactly two s8 x s8 -> s32 matmuls straight
-from HBM plus an O(rows x ndisp) epilogue.  Measured on v5e: 56.2 vs 37.8 M
-A-scans/s for the f32 fused path (+49%), elementwise display error ~5e-3
-(scripts/bench_resident.py, BENCH.md).
+from device memory plus an O(rows x ndisp) epilogue.
 
 Accuracy model: error = operator quantization (~= 1/127 per column,
 partially averaged over the contraction) + the rank-1 background residual.
@@ -38,7 +34,6 @@ tests/test_int8direct.py; display mode only — metrology uses stay on
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Any
 
 import numpy as np
@@ -129,11 +124,10 @@ class Int8DirectPlan:
     const_re: Any = None     # (oph, ndisp) f32 — (128*colsum(Mv) - (pi+dark) @ Mv) / u[r]
     const_im: Any = None
     bg_rank1_resid: Any = None  # f32 scalar diagnostic (host-side; not traced)
-    # rank-2 reciprocal fold (create(rank=2), the VERDICT r3 item-6
-    # experiment): second quantized operator pair for the top-2 SVD of
-    # 1/bg.  None for the production rank-1 plan — reconstruct adds the
-    # second s8 matmul pair only when present (2x matmul cost; BENCH.md
-    # 'rank-2 fold' section for the measured tradeoff and decision).
+    # rank-2 reciprocal fold (create(rank=2)): second quantized operator
+    # pair for the top-2 SVD of 1/bg.  None for the production rank-1
+    # plan — reconstruct adds the second s8 matmul pair only when present
+    # (2x matmul cost).
     oq2_re: Any = None       # (opw, ndisp) int8 — quantized diag(v2) @ M
     oq2_im: Any = None
     s2_re: Any = None        # (ndisp,) f32
@@ -155,8 +149,7 @@ class Int8DirectPlan:
         pairs, 4 s8 matmuls per frame (2x matmul cost) — measured 6-10x
         lower fold residual on structured non-rank-1 backgrounds
         (two-component source spectra, row-dependent mixing), noise-floor-
-        limited otherwise.  See BENCH.md 'rank-2 fold' for the measured
-        speed/accuracy tradeoff and the bank-or-close decision.
+        limited otherwise.
         """
         supported, why = int8_direct_supported(cfg)
         if not supported:
@@ -277,7 +270,7 @@ def shift_u8_to_s8(raw_u8: jnp.ndarray) -> jnp.ndarray:
 def reconstruct_int8_direct(frames_s8: jnp.ndarray,
                             plan: Int8DirectPlan) -> jnp.ndarray:
     """A-scan magnitudes from bias-shifted s8 frames: two s8 x s8 -> s32
-    MXU matmuls straight from HBM + an O(rows x ndisp) f32 epilogue.
+    matmuls straight from device memory + an O(rows x ndisp) f32 epilogue.
 
     frames_s8: (..., oph, opw) int8 (raw counts - 128; see :func:`to_s8`).
     Returns (..., oph, ndisp) magnitudes matching
@@ -300,41 +293,3 @@ def reconstruct_int8_direct(frames_s8: jnp.ndarray,
         re = re + (acc2_re.astype(jnp.float32) * plan.s2_re) * plan.row_gain2
         im = im + (acc2_im.astype(jnp.float32) * plan.s2_im) * plan.row_gain2
     return jnp.sqrt(re * re + im * im)
-
-
-@functools.partial(jax.jit, static_argnames=("averages", "compat", "eps",
-                                             "interpret"))
-def reconstruct_bscan_int8_fused(frames_s8: jnp.ndarray, plan: Int8DirectPlan,
-                                 thresh, averages: int, compat: bool = True,
-                                 eps: float = 1e-5,
-                                 interpret: bool = False):
-    """One averaged displayed B-scan with the s8 matmuls AND the display
-    epilogue fused in a single Pallas kernel
-    (ops.pallas_kernels.int8_bscan_display_fused) plus one XLA
-    normalize+transpose+u8 tail — the minimal-launch form of
-    ``form_bscan(reconstruct_int8_direct(...).sum(0))`` for the
-    scan-chained live shape.  rank-1 plans only, no clampupper (callers
-    gate and fall back to the XLA chain otherwise).
-
-    Returns (bscandb (ndisp, rows), bscandisp uint8 (ndisp, rows)) —
-    values match the XLA chain at f32-reassociation tolerance
-    (tests/test_int8direct.py::TestFusedEpilogue pins it).
-    """
-    from fdoct_tpu.ops.pallas_kernels import int8_bscan_display_fused
-
-    assert plan.oq2_re is None, "pallas path is rank-1 only"
-    denom = 2.303 if compat else float(np.log(10.0))
-    db_u, mn, mx = int8_bscan_display_fused(
-        frames_s8, plan.oq_re, plan.oq_im, plan.s_re, plan.s_im,
-        plan.row_gain_inv, plan.const_re, plan.const_im,
-        jnp.asarray(thresh, jnp.float32), averages=averages, eps=eps,
-        denom=denom, interpret=interpret)
-    from fdoct_tpu.ops.scale import to_uint8
-
-    lo = jnp.min(mn)
-    hi = jnp.max(mx)
-    rng = hi - lo
-    safe = jnp.where(rng == 0, 1.0, rng)
-    disp_u = jnp.maximum(db_u, jnp.asarray(thresh, jnp.float32))
-    disp01 = jnp.where(rng == 0, 0.0, (disp_u.T - lo) / safe)
-    return db_u.T, to_uint8(disp01)

@@ -109,7 +109,7 @@ def _cv_cubic_matrix(n_in: int, n_out: int, a: float = -0.75) -> np.ndarray:
     """(n_out, n_in) interpolation matrix reproducing OpenCV INTER_CUBIC:
     Catmull-Rom-family cubic kernel with a = -0.75, half-pixel-centred
     source coordinates, clamped (replicate) borders.  Built once per shape;
-    the resize then runs as two small matmuls (MXU food)."""
+    the resize then runs as two small matmuls."""
     scale = n_in / n_out
     d = np.arange(n_out)
     src = (d + 0.5) * scale - 0.5

@@ -80,8 +80,8 @@ def resample_matrix(
     that ``ylin = y @ R``.
 
     The resampling is linear in ``y``, so the gather/fma above is equivalent
-    to a sparse two-entries-per-column matrix; densified it becomes MXU food
-    and composes with the window/DC-removal/IFFT operators into the single
+    to a sparse two-entries-per-column matrix; densified it becomes a
+    matmul operand and composes with the window/DC-removal/IFFT operators into the single
     fused reconstruction matmul (see calibration.fused_operator).  Built on
     host with NumPy at calibration time.
     """

@@ -43,9 +43,8 @@ def minmax_pair(x: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Global (min, max) of ``x`` in ONE variadic reduction.
 
     ``jnp.min`` + ``jnp.max`` emit two separate reduce ops that XLA does
-    not always fuse into one pass on TPU — on the B-scan display epilogue
-    the pair showed up as two of the ~5 small kernel launches bounding the
-    int8 scan shape (BENCH.md display-epilogue note).  min and max are
+    not always fuse into one pass; on the B-scan display epilogue that is
+    two of its small kernel launches.  min and max are
     associative and commutative, so the pair-reduce returns bit-identical
     values to the separate reductions in any order.
     """
@@ -98,8 +97,7 @@ def mask_dc_rows(bscan: jnp.ndarray, src_row: int = 4, upto: int = 2) -> jnp.nda
 
     Expressed as an iota select (not ``.at[].set``, which lowers to
     dynamic-update-slice and breaks XLA's elementwise fusion of the
-    surrounding display chain — the hot-path cost is measured in
-    BENCH.md's display-epilogue note)."""
+    surrounding display chain)."""
     depth_idx = jnp.arange(bscan.shape[-2])[:, None]
     return jnp.where(depth_idx < upto,
                      bscan[..., src_row: src_row + 1, :], bscan)

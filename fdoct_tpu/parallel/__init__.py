@@ -1,4 +1,4 @@
-"""SPMD scale-out over a TPU device mesh.
+"""SPMD scale-out over a device mesh.
 
 The reference is single-threaded C++ with no distributed anything
 (SURVEY.md §2.5); its implicit parallelism — every A-scan row independent,

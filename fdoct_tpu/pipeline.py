@@ -13,7 +13,7 @@ Two device paths produce the A-scan magnitudes:
 - ``method="gather"`` — step-by-step ops, bit-compatible with the reference
   loops; used for parity tests and as the fallback.
 - ``method="fused"``  — one complex matmul against the precomputed linear
-  operator (see calibration.py), the MXU speed path.
+  operator (see calibration.py), the speed path.
 
 Frames carry shape (..., oph, opw): rows are lateral A-scan positions,
 columns are wavelength samples; output B-scans are (depth, lateral).
@@ -75,7 +75,7 @@ def apodize_ratio(y: jnp.ndarray, background: jnp.ndarray,
     BscanFFTsim.cpp:845) — so the min/max reduction runs over the frame
     axes only, never jointly across a batch: a batched ``y`` of frames
     with differing ranges gets per-frame scales identical to running the
-    hot loop frame by frame (round-5 VERDICT item 1).
+    hot loop frame by frame.
 
     ``ascan_axis`` names the mesh axis sharding the frame ROWS when this
     runs inside ``shard_map`` (parallel.sharded): the per-frame min/max
@@ -121,26 +121,23 @@ def ascan_mags_gather(yr: jnp.ndarray, calib: Calibration) -> jnp.ndarray:
 
 def ascan_mags_fused(yr: jnp.ndarray, calib: Calibration,
                      precision: str = "default") -> jnp.ndarray:
-    """A-scan magnitudes as one complex matmul |yr @ M| on the MXU.
+    """A-scan magnitudes as one complex matmul pair ``|yr @ M|``.
 
     M composes DC-removal, window, zero-pad, resample, dispersion and the
     truncated unnormalized IDFT (calibration.Calibration.create).
 
-    ``precision``: 'default' uses the TPU's fast matmul passes (~1e-3
-    relative vs the FFT path — ~0.01 dB, display-invisible); 'highest'
-    forces f32-exact accumulation at ~2x matmul cost; 'bf16' forces the
-    explicit-bf16-operand branch on any backend (what 'default' resolves
-    to on TPU) so the production numeric path is testable on CPU; 'int8'
-    uses the quantized operator on the int8 MXU path (~2x bf16 peak on
-    v5e) with dynamically per-row-quantized inputs — a display mode, see
-    _op_matmul_pair_int8.
+    ``precision`` is the config's ``matmul_precision`` and means the same on
+    every backend (``_op_matmul_pair``):
 
-    In the f32/'default' production configuration the operands are cast to
-    bfloat16 explicitly (f32 accumulation via preferred_element_type).
-    TPU DEFAULT matmul precision already rounds f32 operands to bf16 per
-    pass, so this matches what DEFAULT computes on-chip — but it halves the
-    matmul's HBM read traffic: measured 38.1 -> 43.9 M A-scans/s on v5e
-    (scripts/bench_resident.py, honest differenced timing).
+    - 'default': float32 operands at ``Precision.DEFAULT``.  The backend
+      picks the matmul arithmetic: exact float32 on the CPU; on a GPU, XLA
+      may run it on the tensor cores in TF32 (~1e-4 of the peak on an
+      H100).
+    - 'highest': exact float32 everywhere (metrology, Doppler phase).
+    - 'bf16': explicit bfloat16 operands with float32 accumulation
+      (``preferred_element_type``), which halves the operand bytes.
+    - 'int8': the quantized operator with dynamically per-row-quantized
+      inputs, a display mode (``_op_matmul_pair_int8``).
 
     Measured accuracy vs the f64 reference path (pinned by
     tests/test_precision.py::test_bf16_branch_display_equivalent): bf16
@@ -164,10 +161,7 @@ def _op_matmul_pair(yr: jnp.ndarray, calib: Calibration,
     # the bf16 branch.
     if precision in ("int8", "int8_direct") and calib.op_re_q is not None:
         return _op_matmul_pair_int8(yr, calib)
-    use_bf16 = precision in ("bf16", "int8", "int8_direct") or (
-        precision != "highest" and yr.dtype == jnp.float32
-        and jax.default_backend() == "tpu")
-    if use_bf16 and yr.dtype == jnp.float32:
+    if precision in ("bf16", "int8", "int8_direct") and yr.dtype == jnp.float32:
         z = yr.astype(jnp.bfloat16)
         re = jnp.matmul(z, calib.op_re.astype(jnp.bfloat16),
                         preferred_element_type=jnp.float32)
@@ -185,8 +179,8 @@ def _op_matmul_pair(yr: jnp.ndarray, calib: Calibration,
 
 def _op_matmul_pair_int8(yr: jnp.ndarray,
                          calib: Calibration) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """int8 MXU display path: s8 x s8 -> s32 matmuls against the quantized
-    operator (v5e int8 peak is ~2x bf16).
+    """int8 display path: s8 x s8 -> s32 matmuls against the quantized
+    operator.
 
     The input is quantized dynamically per A-scan row with a symmetric
     scale.  Because the operator M already contains the per-row DC-removal
@@ -250,31 +244,6 @@ def ascan_mags(yr: jnp.ndarray, calib: Calibration, method: str = "fused",
 # ---------------------------------------------------------------------------
 
 
-@partial(jax.jit, static_argnames=("cfg", "interpret"))
-def reconstruct_group_pallas(raw_frames: jnp.ndarray, background: jnp.ndarray,
-                             pi_frame: jnp.ndarray, calib: Calibration,
-                             cfg: PipelineConfig,
-                             interpret: bool = False) -> jnp.ndarray:
-    """Whole averaging group in one Pallas kernel: preprocess + ratio, then
-    fused matmul-pair → magnitude → accumulate without the complex
-    intermediate touching HBM (ops.pallas_kernels).  Returns the summed
-    (oph, ndisp) magnitudes (the reference's ``bscantransposed``).
-
-    Performance-equivalent to the XLA fused path on current XLA (both
-    ~1.0 ms / 8×512×2048 group on v5e); kept as the explicit-kernel
-    alternative.  Use ``interpret=True`` off-TPU.
-    """
-    from fdoct_tpu.ops.pallas_kernels import fused_recon_accumulate
-
-    y = preprocess(raw_frames, cfg)
-    yr = apodize_ratio(y, background, pi_frame, cfg)
-    tr = 256 if yr.shape[-2] % 256 == 0 else yr.shape[-2]
-    td = 256 if calib.ndisp % 256 == 0 else calib.ndisp
-    return fused_recon_accumulate(yr, calib.op_re, calib.op_im,
-                                  tile_rows=tr, tile_depth=td,
-                                  interpret=interpret).astype(yr.dtype)
-
-
 @partial(jax.jit, static_argnames=("cfg", "method", "dtype"))
 def reconstruct(raw_frames: jnp.ndarray, background: jnp.ndarray,
                 pi_frame: jnp.ndarray, calib: Calibration,
@@ -307,8 +276,7 @@ def form_bscan(mag_sum: jnp.ndarray, cfg: PipelineConfig,
     # The chain runs UNTRANSPOSED (rows = lateral, cols = depth) so the
     # global min/max reduction fuses with the elementwise dB chain and the
     # transpose sinks into the final display kernel; with the one-pass
-    # minmax_pair this collapses the ~5-launch epilogue that bounded the
-    # int8 scan shape to 2 kernels (BENCH.md display-epilogue fusion).
+    # minmax_pair the epilogue is 2 fusions instead of ~5 launches.
     # Values are bit-identical to the transposed-first formulation: every
     # step is elementwise, min/max are order-invariant, and pixel (5,5) is
     # symmetric under transpose.

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import threading
 from typing import Any, Callable
 
 import numpy as np
@@ -142,6 +143,8 @@ class Session:
         self._said_once: set[str] = set()   # one-shot status messages
         self.plugins: list[Any] = []
         self.status: list[str] = []
+        self._status_lock = threading.Lock()
+        self._offline_threads: list[threading.Thread] = []   # 'y' hand-offs
         # 5-second fps + frame max-intensity meter (the reference's Status
         # rows, BscanFFT.cpp:1100-1119)
         from fdoct_tpu.utils.profiling import FpsMeter
@@ -367,9 +370,10 @@ class Session:
         return msgs
 
     def _say(self, text: str) -> None:
-        self.status.append(text)
-        if len(self.status) > 100:
-            del self.status[:50]
+        with self._status_lock:       # offline hand-off threads report too
+            self.status.append(text)
+            if len(self.status) > 100:
+                del self.status[:50]
 
     def set_roi(self, x: int, y: int, w: int, h: int) -> None:
         """Apply a drag-selected rectangle (B-scan pixel coordinates:
@@ -424,21 +428,41 @@ class Session:
             trig_fn(n * (2 if mode == "Alt" else 1))
 
     def _spawn_offline_tool(self) -> None:
-        """fork/execv the offline reconstruction tool with argv
-        {dirname, manualaverages} (BscanFFTspinj.cpp:2389-2412); falls back
-        to this framework's own offline CLI when no tool is configured."""
-        import subprocess
-        import sys as _sys
+        """Hand the capture directory to the offline reconstruction with
+        argv {dirname, manualaverages} (BscanFFTspinj.cpp:2389-2412).
 
+        A configured external tool (``offline_tool_path``) is fork/execv'd
+        with that argv.  Otherwise this framework's own offline
+        reconstruction (``fdoct offline``) runs on a worker thread of THIS
+        process: a second JAX process would try to reserve the
+        accelerator's memory again while the live session holds it."""
         dirname = str(self.sink.dir) if self.sink is not None else "."
         if self.cfg.offline_tool_path:
-            cmd = [self.cfg.offline_tool_path, dirname,
-                   str(self.cfg.manualaverages)]
-        else:
-            cmd = [_sys.executable, "-m", "fdoct_tpu.cli", "offline",
-                   dirname, str(self.cfg.manualaverages)]
-        self._offline_proc = subprocess.Popen(cmd)
-        self._say(f"spawned offline tool for {dirname}")
+            import subprocess
+            self._offline_proc = subprocess.Popen(
+                [self.cfg.offline_tool_path, dirname,
+                 str(self.cfg.manualaverages)])
+            self._say(f"spawned offline tool for {dirname}")
+            return
+
+        def run():
+            from fdoct_tpu.cli import offline_reconstruct
+            # the same defaults the `fdoct offline DIR N` argv protocol gets
+            try:
+                n = offline_reconstruct(dirname, self.cfg.manualaverages,
+                                        PipelineConfig())
+            except Exception as e:  # worker boundary: the live loop goes on
+                import traceback
+                traceback.print_exc()
+                self._say(f"offline reconstruction of {dirname} failed: "
+                          f"{type(e).__name__}: {e}")
+                return
+            self._say(f"offline reconstruction of {dirname}: {n} sets")
+
+        t = threading.Thread(target=run, name="fdoct-offline", daemon=True)
+        self._offline_threads.append(t)
+        t.start()
+        self._say(f"offline reconstruction started for {dirname}")
 
     def _handle_trig(self, raw: np.ndarray) -> None:
         trig = getattr(self, "_trig", None)
@@ -477,7 +501,7 @@ class Session:
                       f"{self.max_intensity}")
 
     def _use_int8_direct(self, raw) -> bool:
-        """Whether this frame can ride the int8-direct MXU display path
+        """Whether this frame can ride the int8-direct display path
         (cfg.matmul_precision="int8_direct"; fdoct_tpu.int8direct): the
         frame→magnitudes map must be affine in exact 8-bit counts."""
         if self.cfg.matmul_precision != "int8_direct" or self.method != "fused":
@@ -509,12 +533,10 @@ class Session:
         return self._int8_plan() is not None
 
     #: rank-1 fold residual above which the display error is no longer
-    #: display-grade.  Re-derived by measurement (round 4, BENCH.md rank-2
-    #: section): a STRUCTURED background at resid 0.023 produced 5-6 dB of
-    #: worst-case display error — far beyond the 0.03-0.4 dB clean-capture
-    #: band — so above this the session falls back to the exact f32 chain
-    #: instead of warning and serving a degraded display (the rank-2
-    #: escalation was measured at 0.94x f32 and rejected — BENCH.md).
+    #: display-grade: a STRUCTURED background at resid 0.023 produced 5-6 dB
+    #: of worst-case display error — far beyond the 0.03-0.4 dB
+    #: clean-capture band — so above this the session falls back to the
+    #: exact f32 chain instead of warning and serving a degraded display.
     INT8_RESID_ACT = 0.02
 
     def _int8_plan(self):
@@ -524,16 +546,14 @@ class Session:
         id() key would go stale when CPython reuses a freed array's address
         (a recaptured background could then silently keep the old plan).
 
-        High-residual policy (VERDICT r3 weak-4, closed by measurement —
-        BENCH.md rank-2 section): above INT8_RESID_ACT the rank-1 fold is
-        no longer display-grade (5-6 dB worst-case on structured
+        High-residual policy: above INT8_RESID_ACT the rank-1 fold is no
+        longer display-grade (5-6 dB worst-case on structured
         backgrounds), so the session returns None and the frame path falls
         back to the f32 chain, which divides by the exact capture
-        (BscanFFT.cpp:1123-1132).  The rank-2 escalation was measured and
-        rejected: it restores display-grade accuracy but runs at 0.94x
-        f32 (its 4 s8 matmuls cost what the f32 bf16 pair costs), so
-        exact f32 division dominates it on both axes.  create(rank=2)
-        remains available as the documented experiment.
+        (BscanFFT.cpp:1123-1132).  The rank-2 escalation
+        (``Int8DirectPlan.create(rank=2)``) restores display-grade
+        accuracy at twice the s8 matmul work, so the session does not
+        use it.
         """
         key = (self.data_yb, self.data_yp, self.data_yd)
         if (self._i8key is None
@@ -550,9 +570,7 @@ class Session:
                 self._say(f"int8_direct: background rank-1 residual "
                           f"{resid:.3f} is above {self.INT8_RESID_ACT} — "
                           f"not display-grade; falling back to the exact "
-                          f"f32 chain (average more background frames; "
-                          f"the rank-2 fold measured no faster than f32, "
-                          f"BENCH.md)")
+                          f"f32 chain (average more background frames)")
             self._i8plan = plan
             self._i8key = key
         return self._i8plan
@@ -619,14 +637,14 @@ class Session:
         return self._finish_group()
 
     # ------------------------------------------------------------------
-    # batched fast path (VERDICT round-1 item 5): the full-featured session
+    # batched fast path: the full-featured session
     # rides the same fused one-dispatch-per-batch pipeline as bench.py
     # ------------------------------------------------------------------
 
     def _say_once(self, key: str, text: str) -> None:
         """One-shot status message (the `_use_int8_direct` gate pattern):
         fast-path fallbacks must be diagnosable, not silent perf cliffs
-        (round-5 VERDICT weak-4 / ADVICE)."""
+        (ADVICE.md)."""
         if key not in self._said_once:
             self._said_once.add(key)
             self._say(text)
@@ -644,7 +662,7 @@ class Session:
         """Why this batch cannot ride the one-dispatch fast path, or None.
 
         saveframes / saveinterferograms / J-lockin ride the fast path
-        (round-5 VERDICT item 3): their device math is batched and the
+        too: their device math is batched and the
         ring-buffer / subtraction bookkeeping happens host-side per group.
         """
         cfg = self.cfg
@@ -798,7 +816,7 @@ class Session:
         divide the mesh axes, the median halo must fit one neighbor hop,
         and color frames take the single-device path (channel handling is
         host-side there).  A mesh-configured session that falls back says
-        why, once (round-5 VERDICT weak-4 / ADVICE)."""
+        why, once (ADVICE.md)."""
         cfg = self.cfg
         n_data = self.mesh.shape.get("data", 1)
         n_ascan = self.mesh.shape.get("ascan", 1)
@@ -827,7 +845,7 @@ class Session:
         identical to the single-device fast path
         (tests/test_streaming.py::TestMeshStreaming pins it); the
         saveframes / saveinterferograms / J-lockin bookkeeping rides along
-        via _emit_group_results (round-5 VERDICT item 3)."""
+        via _emit_group_results."""
         from jax.sharding import NamedSharding, PartitionSpec as P
         from fdoct_tpu.parallel.sharded import (
             build_session_bscan_step, build_session_bscan_step_int8)
@@ -1091,6 +1109,9 @@ class Session:
                 self.manualaccum = jnp.zeros_like(self.manualaccum)
 
     def close(self) -> None:
+        for t in self._offline_threads:     # finish the 'y' hand-offs
+            t.join()
+        self._offline_threads.clear()
         if self.sink is not None:
             self.sink.parameter_footer(self.cfg, self.bscanthreshold)
             self.sink.close()
@@ -1117,16 +1138,12 @@ def _session_group_pipeline(raw, yb, yp, yd, threshold, calib, cfg,
     the interactive Session rides in its steady state.
 
     Scan-over-groups, NOT one flat matmul over every frame: the flat form
-    keeps a groups×-larger f32 working set live between its stages, and
-    measured 20% slower at the flagship shape (0.172 vs 0.137 ms/group,
-    interleaved same-window differenced timing, BENCH.md round-5
-    scan-vs-flat note) — the same physics that makes bench.py's
-    scan-chained headline beat its batched/offline row's ratio.
+    keeps a groups×-larger f32 working set live between its stages.
 
     ``keep_frames`` / ``keep_binned`` additionally return the per-frame
     magnitudes / preprocessed frames so the saveframes /
     saveinterferograms ring buffers (BscanFFT.cpp:961-984) fill without
-    leaving the fast path (round-5 VERDICT item 3).  Returns
+    leaving the fast path.  Returns
     (outputs, mags-or-None, binned-or-None) with the extras flattened to
     (groups·averages, ...)."""
     from fdoct_tpu.pipeline import (apodize_ratio, ascan_mags, form_bscan,
@@ -1159,12 +1176,11 @@ def _session_group_pipeline(raw, yb, yp, yd, threshold, calib, cfg,
 def _session_group_pipeline_int8(raw_u8, plan, threshold, cfg,
                                  groups, averages, eps, keep_frames=False):
     """int8-direct batched group pipeline: a ``lax.scan`` over groups of
-    two s8 MXU matmuls straight from the raw u8 frames (device-side bias
-    shift) plus the display chain (scan-over-groups for the same measured
-    reason as :func:`_session_group_pipeline`).  The background/pi/dark
-    frames live folded inside ``plan``
-    (fdoct_tpu.int8direct.Int8DirectPlan); measured 1.67x the f32 fused
-    path on v5e (BENCH.md round 3).  Returns (outputs, per-frame mags or
+    two s8 matmuls straight from the raw u8 frames (device-side bias
+    shift) plus the display chain (scan-over-groups for the same reason
+    as :func:`_session_group_pipeline`).  The background/pi/dark frames
+    live folded inside ``plan`` (fdoct_tpu.int8direct.Int8DirectPlan).
+    Returns (outputs, per-frame mags or
     None) — the binned frames are not on this path (int8-direct does zero
     elementwise work on the input; callers preprocess separately when
     saveinterferograms needs them)."""
@@ -1197,7 +1213,7 @@ def _jlockin_batch(bscan_stack, jscansave, threshold, cfg):
     """Batched J-lockin subtraction display (BscanFFT.cpp:1257-1282): the
     per-group dB of max(bscan - jscansave, 0) + 1e-3, floored and
     normalized per group — pure device arithmetic, so it rides the
-    batched/mesh fast paths (round-5 VERDICT item 3)."""
+    batched/mesh fast paths."""
     jdiff = bscan_stack - jscansave[None]
     positive = make_only_positive(jdiff) + 0.001
     sub_db = to_db(positive, eps=0.0, compat=cfg.compat)

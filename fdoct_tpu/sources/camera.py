@@ -4,7 +4,7 @@ The host-side half of the native acquisition seam (native/fdoct_ring.cpp +
 native/capture_daemon.cpp).  Replaces the reference's blocking
 GetQHYCCDLiveFrame call (BscanFFT.cpp:948) with a poll of the newest
 complete frame in the ring — the daemon owns the camera SDK / V4L2 device,
-this process owns the TPU.  Binding is ctypes; no compiled Python extension
+this process owns the accelerator.  Binding is ctypes; no compiled Python extension
 needed.
 """
 

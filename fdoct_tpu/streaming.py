@@ -2,7 +2,7 @@
 
 The reference's fastest path is capture-then-save with a 500-frame buffer
 (BscanFFTspinjnt.cpp:259-352) because its compute cannot keep up with the
-camera; here the goal is inverted — keep the TPU busy while frames stream
+camera; here the goal is inverted — keep the device busy while frames stream
 in.  A producer thread (camera ring / replay / synthetic) fills a bounded
 queue; the consumer assembles batches, issues an async ``device_put`` for
 batch N+1 while batch N computes, and never blocks the device on the host

@@ -55,8 +55,8 @@ def save_session(session, path: str | Path, backend: str = "npz") -> Path:
     """Write config + calibration tensors + runtime knobs to ``path``.
 
     backend='npz' (single compressed archive) or 'orbax' (directory
-    checkpoint via orbax-checkpoint — the production TPU checkpointing
-    stack, useful when the session state should participate in a larger
+    checkpoint via orbax-checkpoint — JAX's checkpointing stack, useful
+    when the session state should participate in a larger
     orbax-managed checkpoint layout).
 
     Returns the path actually WRITTEN (np.savez appends .npz when the

@@ -2,7 +2,7 @@
 
 The reference's display layer is six OpenCV HighGUI windows plus a
 blocking ``waitKey`` keyboard dispatch (BscanFFT.cpp:486-538, 1584-1917).
-On a headless TPU host there is no X11; this module serves the same
+On a headless accelerator host there is no X11; this module serves the same
 windows over HTTP so any browser (or curl) on the operator's machine is
 the display, and key presses flow back over the same socket:
 

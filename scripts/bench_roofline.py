@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Raw roofline probes for the attached chip: HBM read bandwidth, MXU
-throughput, and lax.scan per-step overhead.  Establishes the hardware
+"""Raw roofline probes for the attached device: device-memory read
+bandwidth, matmul throughput, and lax.scan per-step overhead.  Establishes the hardware
 ceiling the pipeline numbers should be judged against."""
 from __future__ import annotations
 
@@ -35,11 +35,11 @@ def main() -> None:
         print(f"[{name}] {dt*1e3:.3f} ms", flush=True)
         return dt
 
-    # 1) HBM read bandwidth: sum of a 256 MB f32 array
+    # 1) device-memory read bandwidth: sum of a 256 MB f32 array
     big = jax.device_put(
         rng.standard_normal((8192, 8192)).astype(np.float32), dev)
     dt = timeit("sum_256MB_f32", jax.jit(lambda x: x.sum()), big)
-    print(f"  -> HBM read ~ {big.nbytes / dt / 1e9:.0f} GB/s", flush=True)
+    print(f"  -> memory read ~ {big.nbytes / dt / 1e9:.0f} GB/s", flush=True)
 
     # 1b) u8 read + widen bandwidth
     bigu8 = jax.device_put(
@@ -48,7 +48,7 @@ def main() -> None:
                 jax.jit(lambda x: x.astype(jnp.float32).sum()), bigu8)
     print(f"  -> u8 widen+read ~ {bigu8.nbytes / dt / 1e9:.0f} GB/s", flush=True)
 
-    # 2) MXU: 4096^3 matmul f32 and bf16
+    # 2) matmul: 4096^3 f32 (default precision) and bf16
     a = jax.device_put(rng.standard_normal((4096, 4096)).astype(np.float32), dev)
     b = jax.device_put(rng.standard_normal((4096, 4096)).astype(np.float32), dev)
     flops = 2 * 4096**3

@@ -1,4 +1,4 @@
-"""int8-direct MXU display path (fdoct_tpu.int8direct): correctness of the
+"""int8-direct display path (fdoct_tpu.int8direct): correctness of the
 background/pi folding, bias-shift exactness, config gating, and Session
 integration.  Display-equivalence criteria follow tests/test_precision.py:
 signal pixels (within 30 dB of peak) move < 0.15 dB; the noise floor is
@@ -144,8 +144,7 @@ class TestNumerics:
     def test_display_equivalent_vs_f64_gather(self, data):
         """Realistic capture (0.3% residual bg noise, nonzero pi): the
         operator-quantization noise floor sits ~50 dB below peak at this
-        tiny fixture's W=256 (it scales ~1/sqrt(W); the flagship W=2048
-        measures 1.8e-3 on-chip, scripts/bench_int8.py), so pixels at the
+        tiny fixture's W=256 (it scales ~1/sqrt(W)), so pixels at the
         -30 dB band edge move up to ~0.3 dB while near-peak pixels (what
         the eye reads) stay < 0.1 dB.  Any practical display threshold
         (every reference ini sets one) clamps the floor region."""
@@ -186,7 +185,7 @@ class TestNumerics:
         assert d[signal].max() < 3.0, d[signal].max()   # bounded, not equiv
 
     def test_rank2_fold_recovers_structured_backgrounds(self, data):
-        """The VERDICT r3 item-6 measurement, pinned: on a STRUCTURED
+        """On a STRUCTURED
         non-rank-1 background (two-component source spectrum with
         row-dependent mixing — the case the rank-1 fold genuinely cannot
         represent, unlike full-rank noise), create(rank=2) folds the top-2
@@ -224,8 +223,7 @@ class TestNumerics:
             db = np.asarray(form_bscan(m.sum(0), cfg, 4).bscandb)
             errs[name] = np.abs(db - ref_db)[signal].max()
         # display-grade again: the 0.3% bg noise floor bounds rank-2 at
-        # ~0.9 dB on this 32-row shape (0.4 dB pure-fold + quantization;
-        # the flagship 512x2048 shape measures 0.39 dB max — BENCH.md),
+        # ~0.9 dB on this 32-row shape (0.4 dB pure-fold + quantization),
         # where rank-1 is 5+ dB
         assert errs["r2"] < 1.5, errs
         assert errs["r2"] < errs["r1"] / 3, errs  # and materially better
@@ -271,30 +269,6 @@ class TestNumerics:
         cfg8 = cfg.replace(matmul_precision="int8")
         c8 = Calibration.create(cfg8)
         assert c8.op_re_q is not None and c8.op_scale_im is not None
-
-
-class TestFusedEpilogue:
-    def test_pallas_fused_matches_xla_chain(self, data):
-        """The Pallas matmul+display megakernel
-        (reconstruct_bscan_int8_fused, interpret mode off-TPU) reproduces
-        form_bscan(reconstruct_int8_direct(...).sum(0)) at f32 tolerance."""
-        from fdoct_tpu.int8direct import reconstruct_bscan_int8_fused
-        cfg, frames, bg, pi = data
-        calib = Calibration.create(cfg)
-        plan = Int8DirectPlan.create(calib, cfg, bg, pi)
-        s8 = jnp.asarray(to_s8(frames))
-        thresh = cfg.bscanthreshold
-
-        m = reconstruct_int8_direct(s8, plan)
-        ref = form_bscan(m.sum(0), cfg, averages=4, bscanthreshold=thresh)
-        db, u8 = reconstruct_bscan_int8_fused(s8, plan, thresh, averages=4,
-                                              compat=cfg.compat,
-                                              interpret=True)
-        assert np.allclose(np.asarray(db), np.asarray(ref.bscandb),
-                           rtol=1e-5, atol=1e-4)
-        d = np.abs(np.asarray(u8).astype(int)
-                   - np.asarray(ref.bscandisp).astype(int))
-        assert d.max() <= 1, d.max()    # knife-edge roundings only
 
 
 class TestSessionIntegration:
@@ -396,7 +370,7 @@ class TestSessionIntegration:
         assert calls
 
     def test_peak_variant_gated_off_int8(self, data):
-        """VERDICT r3 weak-3: the vibrometry (peak) variant is metrology —
+        """The vibrometry (peak) variant is metrology —
         its plugin inverts sub-dB peak-hold differences through the
         Bessel-null curve (BscanFFTpeak.cpp:466-738), so int8-direct's
         display-grade quantization must never feed it.  The session stays
@@ -416,13 +390,10 @@ class TestSessionIntegration:
 
     @pytest.mark.parametrize("kind", ["structured", "noise"])
     def test_high_resid_falls_back_to_f32(self, data, kind):
-        """The high-residual policy (VERDICT r3 weak-4, closed by
-        measurement): above INT8_RESID_ACT the rank-1 fold is not
+        """The high-residual policy: above INT8_RESID_ACT the rank-1 fold is not
         display-grade, so the session refuses the plan and the frame path
         rides the exact f32 chain — for BOTH structured and
-        noise-dominated deviations.  (The rank-2 escalation was measured
-        and rejected: display-grade again, but 0.94x f32 speed — exact
-        division dominates it on both axes.  BENCH.md rank-2 section.)"""
+        noise-dominated deviations."""
         cfg, frames, bg, pi = data
         if kind == "structured":
             R, C = 32, 256

@@ -1,6 +1,6 @@
 """Two-process multi-host test: real jax.distributed + Gloo collectives.
 
-The moral equivalent of multi-host TPU: two OS processes, each owning one
+The moral equivalent of a multi-host cluster: two OS processes, each owning one
 CPU device, join a global mesh; the sharded B-scan step's psum/pmin/pmax
 collectives cross the process boundary.  Skipped if distributed CPU init is
 unavailable in the environment.

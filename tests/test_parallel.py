@@ -159,7 +159,7 @@ class TestScalingHarness:
 
     def test_measured_psum_traffic_matches_design(self, small_cfg):
         """The compiled sharded B-scan step moves exactly one
-        (H_loc x ndisp) psum + 2 scalars over the mesh (BENCH.md claim)."""
+        (H_loc x ndisp) psum + 2 scalars over the mesh."""
         import sys
         from pathlib import Path
 
@@ -496,3 +496,44 @@ def test_sharded_median_with_binning(cfg, setup):
     ref = form_bscan(mags.sum(0), bcfg, averages=len(raw))
     np.testing.assert_allclose(np.asarray(db_sh), np.asarray(ref.bscandb),
                                atol=1e-9)
+
+
+class TestInitializeMultihost:
+    """initialize_multihost: a no-op for one process; otherwise the
+    coordinator, process count and id reach jax.distributed (from the
+    arguments or FDOCT_* variables), and a failed start says what a GPU
+    cluster needs."""
+
+    @pytest.fixture()
+    def calls(self, monkeypatch):
+        for k in ("FDOCT_COORDINATOR", "FDOCT_NUM_PROCESSES",
+                  "FDOCT_PROCESS_ID"):
+            monkeypatch.delenv(k, raising=False)
+        seen = []
+        monkeypatch.setattr(jax.distributed, "initialize",
+                            lambda **kw: seen.append(kw))
+        return seen
+
+    def test_single_process_is_noop(self, calls):
+        from fdoct_tpu.parallel import initialize_multihost
+        assert initialize_multihost() is False
+        assert calls == []
+
+    def test_env_reaches_jax_distributed(self, calls, monkeypatch):
+        from fdoct_tpu.parallel import initialize_multihost
+        monkeypatch.setenv("FDOCT_COORDINATOR", "localhost:12345")
+        monkeypatch.setenv("FDOCT_NUM_PROCESSES", "2")
+        monkeypatch.setenv("FDOCT_PROCESS_ID", "1")
+        assert initialize_multihost() is True
+        assert calls == [dict(num_processes=2, process_id=1,
+                              coordinator_address="localhost:12345")]
+
+    def test_failure_names_what_is_missing(self, monkeypatch):
+        from fdoct_tpu.parallel import initialize_multihost
+
+        def refuse(**kw):
+            raise ValueError("coordinator_address should be defined")
+
+        monkeypatch.setattr(jax.distributed, "initialize", refuse)
+        with pytest.raises(RuntimeError, match="FDOCT_COORDINATOR"):
+            initialize_multihost(num_processes=2)

@@ -52,20 +52,48 @@ class TestDisplayEquivalence:
         assert np.mean(diff <= 2) > 0.99
 
 
+class TestPolicy:
+    """One precision policy, read from the config and the same on every
+    backend: the lowered matmul pair's operand types and precision."""
+
+    @pytest.mark.parametrize("precision,operand,prec", [
+        ("default", "f32", "DEFAULT"),
+        ("highest", "f32", "HIGHEST"),
+        ("bf16", "bf16", "DEFAULT"),
+    ])
+    def test_matmul_operands(self, precision, operand, prec):
+        import re
+
+        import jax
+
+        from fdoct_tpu.pipeline import ascan_mags_fused
+
+        cfg = PipelineConfig(width=256, height=8, numfftpoints=512,
+                             numdisplaypoints=64, dtype="float32")
+        calib = Calibration.create(cfg, dtype="float32")
+        yr = jnp.zeros((8, 256), jnp.float32)
+        txt = jax.jit(lambda y: ascan_mags_fused(y, calib, precision)).lower(
+            yr).as_text()
+        dots = re.findall(r"stablehlo\.dot_general .*precision = "
+                          r"\[(\w+), \w+\] : \(tensor<8x256x(\w+)>, "
+                          r"tensor<256x64x(\w+)>\) -> tensor<8x64xf32>", txt)
+        assert dots == [(prec, operand, operand)] * 2, txt
+
+
 class TestMatmulPrecisionKnob:
     def test_fused_exact_method(self, data):
         """method='fused_exact' / matmul_precision='highest' forces exact
-        f32 matmuls (identical to default on CPU; tighter on TPU)."""
+        f32 matmuls (identical to default on CPU; tighter than TF32 on a
+        GPU)."""
         cfg, frames, bg = data
         a = _display(cfg, frames, bg, "float32", "fused")
         b = _display(cfg, frames, bg, "float32", "fused_exact")
         assert np.abs(a - b).max() <= 1
 
     def test_bf16_branch_display_equivalent(self, data):
-        """matmul_precision='bf16' forces the production TPU branch
-        (explicit bf16 operands, f32 accumulation) on any backend — here on
-        CPU.  This is the coverage for what 'default' resolves to on a real
-        chip (pipeline.ascan_mags_fused).
+        """matmul_precision='bf16' selects the explicit bf16-operand branch
+        (f32 accumulation) on every backend — here on CPU
+        (pipeline.ascan_mags_fused).
 
         Measured characterization (this test pins it): bf16 operand
         rounding perturbs only the NOISE FLOOR — the matmul's absolute
@@ -96,7 +124,7 @@ class TestMatmulPrecisionKnob:
         assert d.max() < 4.0, d.max()      # noise floor bounded
 
     def test_int8_branch_display_equivalent(self, data):
-        """matmul_precision='int8' (the s8 x s8 -> s32 MXU display path)
+        """matmul_precision='int8' (the s8 x s8 -> s32 display path)
         must stay display-equivalent on signal.  The key design point it
         pins: because M contains the DC-removal projector, the pipeline
         subtracts the row mean BEFORE quantization, so the int8 range

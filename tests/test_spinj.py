@@ -110,6 +110,26 @@ class TestOfflineHandoff:
         # the reference's argv protocol: {tool, dirname, manualaverages}
         assert calls["cmd"] == ["/opt/tool", str(sink.dir), "3"]
 
+    def test_y_key_without_tool_reconstructs_in_process(self, cfg, src,
+                                                        tmp_path,
+                                                        monkeypatch):
+        """No external tool configured: the offline reconstruction runs on
+        a worker thread of the live process (a second JAX process would
+        compete for the accelerator's memory), never as a child."""
+        def no_child(*a, **k):
+            raise AssertionError("offline hand-off started a process")
+
+        monkeypatch.setattr("subprocess.Popen", no_child)
+        sink = RunWriter(tmp_path, "sj6")
+        s = Session(cfg, variant="spinj", sink=sink)
+        s.key("t")
+        feed(s, src, 3)                  # one Trig set of manualaverages=3
+        s.key("y")
+        s.close()                        # joins the hand-off
+        assert (sink.dir / "offline_bscan000.png").exists()
+        assert (sink.dir / "offline_bscanc000.png").exists()
+        assert any("1 sets" in m for m in s.status), s.status
+
 
 class TestBscanRebin:
     def test_rebin_changes_output_but_keeps_shape(self, src):
